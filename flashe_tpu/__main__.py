@@ -339,7 +339,7 @@ def cmd_cluster(args) -> int:
 
 def cmd_mesh_party(args) -> int:
     """One client process of an SPMD mesh federation (multi-controller
-    JAX over DCN/ICI — parallel/mesh_party.py; run one per host).
+    JAX over the network — parallel/mesh_party.py; run one per host).
 
     NOTE: must run before anything initialises the XLA backend, so this
     command performs jax.distributed.initialize first thing."""
@@ -613,7 +613,7 @@ def cmd_tables(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m flashe_tpu",
-        description="TPU-native FLASHE secure-aggregation framework")
+        description="FLASHE secure-aggregation framework on JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_submit = sub.add_parser(
@@ -863,6 +863,9 @@ def main(argv=None) -> int:
     p_bind.set_defaults(fn=cmd_bind)
 
     args = ap.parse_args(argv)
+    from flashe_tpu import jaxenv
+
+    jaxenv.setup()
     return args.fn(args)
 
 

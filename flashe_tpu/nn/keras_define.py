@@ -1,11 +1,11 @@
-"""Keras `nn_define` JSON -> flax model interpreter.
+"""Keras `nn_define` JSON -> JAX model interpreter.
 
 The reference builds its training model from the Keras-serialized JSON
 embedded in every job conf (`build_keras` from nn_define,
 federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109; the configs live
 at examples/configs/*/train_job_conf.json `algorithm_parameters.
 homo_nn_0.nn_define`).  This module interprets the same JSON directly as
-a flax module so a reference user's job confs work unchanged:
+a model over nn/layers.py so a reference user's job confs work unchanged:
 
 - Sequential layer stacks (the CNN and LSTM/GRU workloads),
 - nested functional `Model` graphs (the ResNet workload: inbound_nodes
@@ -14,7 +14,7 @@ a flax module so a reference user's job confs work unchanged:
   Dropout, Flatten, Dense, Activation, Add, Embedding, GRU, LSTM,
   BatchNormalization.
 
-Documented divergences (TPU-first redesign, not defects):
+Documented divergences (by design, not defects):
 - BatchNormalization maps to GroupNorm: running batch statistics are
   non-trainable state that does not aggregate meaningfully under FedAvg
   (the aggregator only federates trainable weights), and GroupNorm keeps
@@ -25,16 +25,18 @@ Documented divergences (TPU-first redesign, not defects):
   and XLA-fusible); predict() re-applies softmax.
 - Keras regularizers/initializer seeds are ignored (the reference's L2
   regularizers only shape gradients slightly; initializers are re-drawn
-  from the flax PRNG with the shared cross-client seed).
+  from the JAX PRNG with the shared cross-client seed).
 """
 
 from __future__ import annotations
 
 import json
+from dataclasses import dataclass
 from typing import Any, Dict, Sequence
 
 import jax.numpy as jnp
-import flax.linen as nn
+
+from flashe_tpu.nn import layers as L
 
 __all__ = ["KerasDefineModel", "from_nn_define", "count_params_define"]
 
@@ -43,10 +45,7 @@ def _act(x, name: str | None):
     if not name or name in ("linear", "softmax"):
         # softmax folds into the loss (see module docstring)
         return x
-    fn = getattr(nn, name, None)
-    if fn is None:
-        raise ValueError(f"unsupported activation {name!r}")
-    return fn(x)
+    return L.activation(name)(x)
 
 
 def _pair(v) -> tuple:
@@ -55,116 +54,103 @@ def _pair(v) -> tuple:
     return (int(v), int(v))
 
 
-class _Graph(nn.Module):
+def _graph(s, layers: Sequence[dict], x, train: bool):
     """Functional Keras `Model` graph (the ResNet nn_define)."""
-
-    layers_json: str
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        layers = json.loads(self.layers_json)
-        values: Dict[str, Any] = {}
-        for spec in layers:
-            name = spec["name"]
-            cls = spec["class_name"]
-            if cls == "InputLayer":
-                values[name] = x
-                continue
-            inbound = spec["inbound_nodes"][0]
-            ins = [values[ref[0]] for ref in inbound]
-            if cls == "Add":
-                out = ins[0]
-                for extra in ins[1:]:
-                    out = out + extra
-            else:
-                out = _apply_layer(self, cls, spec["config"], ins[0], train)
-            values[name] = out
-        return values[layers[-1]["name"]]
+    values: Dict[str, Any] = {}
+    for spec in layers:
+        name = spec["name"]
+        cls = spec["class_name"]
+        if cls == "InputLayer":
+            values[name] = x
+            continue
+        inbound = spec["inbound_nodes"][0]
+        ins = [values[ref[0]] for ref in inbound]
+        if cls == "Add":
+            out = ins[0]
+            for extra in ins[1:]:
+                out = out + extra
+        else:
+            out = _apply_layer(s, cls, spec["config"], ins[0], train)
+        values[name] = out
+    return values[layers[-1]["name"]]
 
 
-def _apply_layer(mod: nn.Module, cls: str, cfg: dict, x, train: bool):
-    """One Keras layer -> flax ops.  `mod` provides the param scope; layer
-    names from the define keep the param tree stable across rebuilds."""
+def _apply_layer(s, cls: str, cfg: dict, x, train: bool):
+    """One Keras layer -> JAX ops in scope `s`; layer names from the
+    define keep the param tree stable across rebuilds."""
     name = cfg.get("name")
     if cls == "Reshape":
         return x.reshape((x.shape[0],) + tuple(cfg["target_shape"]))
     if cls == "Flatten":
         return x.reshape((x.shape[0], -1))
     if cls == "Dropout":
-        return nn.Dropout(float(cfg["rate"]), deterministic=not train,
-                          name=name)(x)
+        return L.dropout(s, x, float(cfg["rate"]), train)
     if cls == "Activation":
         return _act(x, cfg.get("activation"))
     if cls == "Dense":
-        y = nn.Dense(int(cfg["units"]), use_bias=cfg.get("use_bias", True),
-                     name=name)(x)
+        y = L.dense(s, x, int(cfg["units"]),
+                    use_bias=cfg.get("use_bias", True), name=name)
         return _act(y, cfg.get("activation"))
     if cls == "Conv2D":
-        padding = cfg.get("padding", "valid").upper()
-        y = nn.Conv(int(cfg["filters"]), _pair(cfg["kernel_size"]),
-                    strides=_pair(cfg.get("strides", 1)), padding=padding,
-                    use_bias=cfg.get("use_bias", True), name=name)(x)
+        y = L.conv(s, x, int(cfg["filters"]), _pair(cfg["kernel_size"]),
+                   strides=_pair(cfg.get("strides", 1)),
+                   padding=cfg.get("padding", "valid").upper(),
+                   use_bias=cfg.get("use_bias", True), name=name)
         return _act(y, cfg.get("activation"))
-    if cls == "MaxPooling2D":
+    if cls in ("MaxPooling2D", "AveragePooling2D"):
         pool = _pair(cfg.get("pool_size", 2))
         strides = _pair(cfg.get("strides") or cfg.get("pool_size", 2))
-        return nn.max_pool(x, pool, strides=strides,
-                           padding=cfg.get("padding", "valid").upper())
-    if cls == "AveragePooling2D":
-        pool = _pair(cfg.get("pool_size", 2))
-        strides = _pair(cfg.get("strides") or cfg.get("pool_size", 2))
-        return nn.avg_pool(x, pool, strides=strides,
-                           padding=cfg.get("padding", "valid").upper())
+        fn = L.max_pool if cls == "MaxPooling2D" else L.avg_pool
+        return fn(x, pool, strides=strides,
+                  padding=cfg.get("padding", "valid").upper())
     if cls == "BatchNormalization":
         # -> GroupNorm (documented divergence, module docstring)
         ch = x.shape[-1]
         groups = 8
         while ch % groups:
             groups //= 2
-        return nn.GroupNorm(num_groups=max(groups, 1),
+        return L.group_norm(s, x, max(groups, 1),
                             epsilon=float(cfg.get("epsilon", 1e-3)),
-                            name=name)(x)
+                            name=name)
     if cls == "Embedding":
-        return nn.Embed(int(cfg["input_dim"]), int(cfg["output_dim"]),
-                        name=name)(x.astype(jnp.int32))
+        return L.embed(s, x.astype(jnp.int32), int(cfg["input_dim"]),
+                       int(cfg["output_dim"]), name=name)
     if cls in ("GRU", "LSTM"):
         units = int(cfg["units"])
-        cell = (nn.GRUCell(units, name=name) if cls == "GRU"
-                else nn.OptimizedLSTMCell(units, name=name))
-        y = nn.RNN(cell)(x)
-        y = _act(y, cfg.get("activation") if cls == "GRU" else None)
+        if cls == "GRU":
+            y = _act(L.gru(s, x, units, name=name), cfg.get("activation"))
+        else:
+            y = L.lstm(s, x, units, name=name)
         if cfg.get("return_sequences", False):
             return y
         return y[:, -1, :]
     if cls == "Model":
-        return _Graph(json.dumps(cfg["layers"]), name=name)(x, train)
+        return _graph(s.child("_Graph", name), cfg["layers"], x, train)
     raise ValueError(f"unsupported Keras layer {cls!r} in nn_define")
 
 
-class KerasDefineModel(nn.Module):
-    """Flax model interpreting a Keras Sequential/functional nn_define.
+@dataclass(frozen=True)
+class KerasDefineModel(L.Module):
+    """Model interpreting a Keras Sequential/functional nn_define.
 
-    Construct with the JSON *string* (flax module fields must be
-    hashable); `from_nn_define` wraps a dict.
+    Construct with the JSON *string* (hashable); `from_nn_define` wraps a
+    dict.
     """
 
     define_json: str
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def __call__(self, s, x, train: bool = False):
         define = json.loads(self.define_json)
-        if define.get("class_name") == "Sequential":
-            layers: Sequence[dict] = define["config"]["layers"]
-        elif define.get("class_name") == "Model":
-            return _Graph(
-                json.dumps(define["config"]["layers"]))(x, train)
-        else:
+        if define.get("class_name") == "Model":
+            return _graph(s.child("_Graph"), define["config"]["layers"], x,
+                          train)
+        if define.get("class_name") != "Sequential":
             raise ValueError(
                 f"unsupported nn_define class {define.get('class_name')!r}")
-        for spec in layers:
+        for spec in define["config"]["layers"]:
             if spec["class_name"] == "InputLayer":
                 continue
-            x = _apply_layer(self, spec["class_name"], spec["config"], x,
+            x = _apply_layer(s, spec["class_name"], spec["config"], x,
                              train)
         return x
 

@@ -1,4 +1,4 @@
-"""Flax model zoo mirroring the reference workloads.
+"""Model zoo mirroring the reference workloads (pure JAX, nn/layers.py).
 
 Reference (examples/configs/*/train_job_conf.json nn_define, Keras/TF1):
 - FEMNIST CNN: Conv32-3x3/relu -> Conv64-3x3/relu -> maxpool2 -> dropout
@@ -6,72 +6,68 @@ Reference (examples/configs/*/train_job_conf.json nn_define, Keras/TF1):
 - CIFAR-10 ResNet (CIFAR-style residual stacks),
 - Shakespeare char-LSTM: embed -> 2x LSTM(256) -> dense(vocab).
 
-All models are bfloat16-friendly and MXU-shaped (channel dims multiples of
-8/128 where the reference allows).  `build_model(name, **kw)` is the
-registry entry point the HomoNN component resolves through, standing in
-for the reference's nn_define JSON -> Keras builder
-(federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109).
+`build_model(name, **kw)` is the registry entry point the HomoNN component
+resolves through, standing in for the reference's nn_define JSON -> Keras
+builder (federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Sequence
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from flashe_tpu.nn import layers as L
 
 __all__ = ["build_model", "FemnistCNN", "CifarResNet", "CharLSTM", "MLP"]
 
 
-class MLP(nn.Module):
+@dataclass(frozen=True)
+class MLP(L.Module):
     features: Sequence[int] = (64, 10)
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def __call__(self, s, x, train: bool = False):
         x = x.reshape((x.shape[0], -1))
         for f in self.features[:-1]:
-            x = nn.relu(nn.Dense(f)(x))
-        return nn.Dense(self.features[-1])(x)
+            x = jax.nn.relu(L.dense(s, x, f))
+        return L.dense(s, x, self.features[-1])
 
 
-class FemnistCNN(nn.Module):
+@dataclass(frozen=True)
+class FemnistCNN(L.Module):
     """The FEMNIST CNN (cnn_* configs)."""
 
     num_classes: int = 62
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def __call__(self, s, x, train: bool = False):
         x = x.reshape((x.shape[0], 28, 28, 1))
-        x = nn.relu(nn.Conv(32, (3, 3), padding="VALID")(x))
-        x = nn.relu(nn.Conv(64, (3, 3), padding="VALID")(x))
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Dropout(0.25, deterministic=not train)(x)
+        x = jax.nn.relu(L.conv(s, x, 32, (3, 3), padding="VALID"))
+        x = jax.nn.relu(L.conv(s, x, 64, (3, 3), padding="VALID"))
+        x = L.max_pool(x, (2, 2), strides=(2, 2))
+        x = L.dropout(s, x, 0.25, train)
         x = x.reshape((x.shape[0], -1))
-        x = nn.relu(nn.Dense(128)(x))
-        x = nn.Dropout(0.5, deterministic=not train)(x)
-        return nn.Dense(self.num_classes)(x)
+        x = jax.nn.relu(L.dense(s, x, 128))
+        x = L.dropout(s, x, 0.5, train)
+        return L.dense(s, x, self.num_classes)
 
 
-class _ResBlock(nn.Module):
-    filters: int
-    strides: int = 1
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        y = nn.Conv(self.filters, (3, 3), strides=(self.strides,) * 2,
-                    padding="SAME", use_bias=False)(x)
-        y = nn.GroupNorm(num_groups=8)(y)
-        y = nn.relu(y)
-        y = nn.Conv(self.filters, (3, 3), padding="SAME", use_bias=False)(y)
-        y = nn.GroupNorm(num_groups=8)(y)
-        if x.shape[-1] != self.filters or self.strides != 1:
-            x = nn.Conv(self.filters, (1, 1), strides=(self.strides,) * 2,
-                        use_bias=False)(x)
-        return nn.relu(x + y)
+def _res_block(s, x, filters: int, strides: int):
+    s = s.child("_ResBlock")
+    y = L.conv(s, x, filters, (3, 3), strides=(strides,) * 2,
+               use_bias=False)
+    y = jax.nn.relu(L.group_norm(s, y, 8))
+    y = L.conv(s, y, filters, (3, 3), use_bias=False)
+    y = L.group_norm(s, y, 8)
+    if x.shape[-1] != filters or strides != 1:
+        x = L.conv(s, x, filters, (1, 1), strides=(strides,) * 2,
+                   use_bias=False)
+    return jax.nn.relu(x + y)
 
 
-class CifarResNet(nn.Module):
+@dataclass(frozen=True)
+class CifarResNet(L.Module):
     """CIFAR-style ResNet (resnet_* configs).  GroupNorm instead of
     BatchNorm: running batch statistics do not aggregate meaningfully
     under FedAvg, and GN keeps the forward pass purely functional."""
@@ -80,20 +76,20 @@ class CifarResNet(nn.Module):
     stage_sizes: Sequence[int] = (2, 2, 2)
     width: int = 16
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        x = nn.Conv(self.width, (3, 3), padding="SAME", use_bias=False)(x)
-        x = nn.relu(nn.GroupNorm(num_groups=8)(x))
+    def __call__(self, s, x, train: bool = False):
+        x = L.conv(s, x, self.width, (3, 3), use_bias=False)
+        x = jax.nn.relu(L.group_norm(s, x, 8))
         for stage, blocks in enumerate(self.stage_sizes):
             filters = self.width * (2 ** stage)
             for b in range(blocks):
                 strides = 2 if (b == 0 and stage > 0) else 1
-                x = _ResBlock(filters, strides)(x, train)
+                x = _res_block(s, x, filters, strides)
         x = jnp.mean(x, axis=(1, 2))
-        return nn.Dense(self.num_classes)(x)
+        return L.dense(s, x, self.num_classes)
 
 
-class CharLSTM(nn.Module):
+@dataclass(frozen=True)
+class CharLSTM(L.Module):
     """Shakespeare next-char model (lstm_* configs): embed -> stacked LSTM
     -> dense(vocab), predicting the next token from the last position
     (the reference's create_label construction, enter_point.py:158-166)."""
@@ -103,15 +99,14 @@ class CharLSTM(nn.Module):
     hidden: int = 256
     layers: int = 2
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        h = nn.Embed(self.vocab, self.embed)(x)
+    def __call__(self, s, x, train: bool = False):
+        h = L.embed(s, x, self.vocab, self.embed)
         for _ in range(self.layers):
-            h = nn.RNN(nn.OptimizedLSTMCell(self.hidden))(h)
-        return nn.Dense(self.vocab)(h[:, -1, :])
+            h = L.lstm(s, h, self.hidden)
+        return L.dense(s, h[:, -1, :], self.vocab)
 
 
-_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+_REGISTRY: Dict[str, Callable[..., L.Module]] = {
     "mlp": MLP,
     "cnn": FemnistCNN,
     "femnist_cnn": FemnistCNN,
@@ -122,7 +117,7 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
 }
 
 
-def build_model(name: str, **kwargs: Any) -> nn.Module:
+def build_model(name: str, **kwargs: Any) -> L.Module:
     if name in ("keras", "nn_define"):
         # a Keras-JSON nn_define from a reference-style job conf
         # (federatedml/nn/backend/tf_keras/jzf_nn_model.py:99-109)
@@ -139,5 +134,5 @@ def build_model(name: str, **kwargs: Any) -> nn.Module:
     return _REGISTRY[name](**kwargs)
 
 
-def init_params(model: nn.Module, input_example, seed: int = 0):
+def init_params(model: L.Module, input_example, seed: int = 0):
     return model.init(jax.random.PRNGKey(seed), input_example)["params"]

@@ -2,7 +2,7 @@
 
 FLASHE derives its one-time masks from AES-256-ECB evaluated over structured
 16-byte indices (reference: federatedml/secureprotol/jzf_aes_prp.py:11-30,
-jzf_flashe.py:48-82).  To make the whole cipher a TPU program, AES itself is
+jzf_flashe.py:48-82).  To make the whole cipher a device program, AES itself is
 implemented here as an elementwise int32 program over byte planes:
 
 - the key schedule runs on the host (tiny, once per session),
@@ -12,11 +12,11 @@ implemented here as an elementwise int32 program over byte planes:
 - SubBytes has two interchangeable implementations:
   * `sbox_lookup` — a 256-entry table gather (always correct, used on CPU),
   * `sbox_circuit` — the Boyar–Peralta boolean circuit evaluated on the 8
-    bit planes of each byte.  No gathers: pure XOR/AND VPU ops, which is
-    what the fused TPU path and the Pallas kernel use.
+    bit planes of each byte.  No gathers: pure XOR/AND ops, which is
+    what the bitsliced stream (ops/aes_bitsliced.py) is built from.
 
-Both are validated against each other and against the `cryptography`
-library oracle in tests/test_aes.py.
+Both are validated against each other and against the host AES oracles
+in tests/test_aes.py.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from flashe_tpu.ops.lanes import nlimbs_for
 from flashe_tpu.ops.masks import merge_size, num_blocks
 
 __all__ = ["bitsliced_prp_lane_stream", "bitsliced_counter_words",
-           "lanes_permuted"]
+           "round_key_planes"]
 
 _FULL = np.uint32(0xFFFFFFFF)
 
@@ -45,13 +45,6 @@ _LOW_BIT_PLANES = [
     np.uint32(0xFF00FF00),  # bit 3
     np.uint32(0xFFFF0000),  # bit 4
 ]
-
-
-def _scalar_bit_plane(value, bit, ngroups):
-    """Broadcast bit `bit` of a traced int32 scalar to a full/empty plane."""
-    b = (value >> bit) & 1
-    return jnp.broadcast_to(
-        (b.astype(jnp.uint32) * _FULL), (ngroups,))
 
 
 def _sbox_planes(bits):
@@ -175,11 +168,8 @@ def bitsliced_counter_words(round_keys, iter_index, stream_idx,
     Generates blocks [begin_block, begin_block + 32*ngroups) (begin_block
     must be 32-aligned) and returns a list of four (32, ngroups) uint32
     arrays: words[w][j, g] is 32-bit word w (w0 = least significant) of
-    block begin_block + 32*g + j.  This is the whole bitsliced pipeline
-    minus the final block-order interleave — the layout every consumer
-    that tolerates a fixed permutation (the fused Pallas kernel) uses
-    directly, because (32, G) stacking lowers on Mosaic while the
-    (G, 32) -> flat minor-dim interleave does not.
+    block begin_block + 32*g + j.  Callers turn the (32, G) words into
+    linear block order themselves (bitsliced_prp_lane_stream).
     """
     iter_index = jnp.asarray(iter_index, jnp.int32)
     stream_idx = jnp.asarray(stream_idx, jnp.int32)
@@ -226,8 +216,7 @@ def bitsliced_counter_words(round_keys, iter_index, stream_idx,
         bits = [S[:, i, :] for i in range(8)]
         return jnp.stack(_sbox_planes(bits), axis=1)
 
-    # ShiftRows as static restacking (no gather, no captured index
-    # constants — required for Pallas kernel bodies)
+    # ShiftRows as static restacking (no gather)
     perm = [int(p) for p in aes_mod._SHIFT_ROWS]
 
     def shift_rows(S):
@@ -257,229 +246,33 @@ def bitsliced_counter_words(round_keys, iter_index, stream_idx,
     return words
 
 
-def bitsliced_counter_words_flat(round_keys, iter_index, stream_idx,
-                                 ngroups: int, begin_block=0,
-                                 two_d: bool = False, stream_idx2=None):
-    """Same contract/output as bitsliced_counter_words, but the AES state
-    lives as 128 *independent* (G,) planes in a python list instead of a
-    stacked (16, 8, G) tensor.
+def round_key_planes(round_keys):
+    """(15, 16) AES round-key bytes -> (15, 128) uint32 bit masks.
 
-    Why: on Mosaic, the stacked form's per-round restacks
-    (jnp.stack/slice/reshape in sub_bytes / shift_rows / mix_columns) are
-    physical VMEM copies that dominate the cheap XOR/AND gates.  With
-    flat planes, ShiftRows and all byte/bit rewiring become python list
-    renaming (zero device ops) and every remaining op is a pure
-    elementwise XOR/AND on a (G,) vector — measured ~2x faster inside
-    the fused Pallas kernel at the same G.  Trace size is larger (the
-    16-byte S-box loop unrolls), which only costs one-time compilation.
-
-    Plane index convention: planes[k * 8 + i] = bit i (LSB-first) of
-    state byte k.
-
-    two_d=True shapes each plane (8, cols) with cols = ngroups // 8
-    (group g lives at C-order position [g // cols, g % cols]), so one
-    plane op fills a whole (8, 128) vreg when ngroups = 1024 instead of
-    a single sublane row — the layout the fused Pallas kernel uses.
-    Output words are then (32, 8, cols).
-
-    stream_idx2 (two_d only): evaluate TWO independent streams in one
-    shared gate schedule — each plane gains a leading stream axis of 2,
-    so every gate is a single op over both circuits' planes (two vregs
-    from two independent dependency chains per instruction).  Returns
-    (words_a, words_b), each the two_d single-stream shape.  This is the
-    two-stream interleave experiment of docs/ROOFLINE.md §3: FLASHE's
-    double mask needs both streams anyway (jzf_flashe.py:480-481).
+    Entry [r, 8 * k + i] is all ones where bit i (LSB first) of byte k
+    of round key r is set, else zero: AddRoundKey on bit-planes is then
+    one XOR per plane with a ready-made scalar (the fused CUDA kernel's
+    key input, native/flashe_mask.h).
     """
-    iter_index = jnp.asarray(iter_index, jnp.int32)
-    stream_idx = jnp.asarray(stream_idx, jnp.int32)
-    base = jnp.asarray(begin_block, jnp.int32)
-    dual = stream_idx2 is not None
-    if two_d:
-        # (rows, 128) planes: exactly ngroups/1024 vregs per gate op.
-        # rows=8 (G=1024) is one vreg; larger tiles stack more sublane
-        # rows per plane, giving Mosaic independent per-vreg instructions
-        # within one gate — the ILP experiment of docs/ROOFLINE.md §3.
-        cols = min(ngroups, 128)
-        assert ngroups % cols == 0, "two_d planes need ngroups % 128 == 0"
-        pshape = (ngroups // cols, cols)
-    else:
-        assert not dual, "dual streams need the two_d plane layout"
-        pshape = (ngroups,)
-    one_shape = pshape
-    if dual:
-        stream_idx2 = jnp.asarray(stream_idx2, jnp.int32)
-        pshape = (2,) + pshape  # leading stream axis
-    group_base = (base + 32 * jnp.arange(ngroups, dtype=jnp.int32)
-                  ).reshape(one_shape)
-    if dual:
-        group_base = jnp.broadcast_to(group_base[None], pshape)
-    zeros = jnp.zeros(pshape, jnp.uint32)
-
-    def scalar_plane(value, bit):
-        b = ((value >> bit) & 1).astype(jnp.uint32) * _FULL
-        return jnp.broadcast_to(b, pshape)
-
-    def stream_plane(k, bit):
-        """Bit `bit` of stream-idx byte k — the only planes that differ
-        between the two interleaved circuits."""
-        v = (stream_idx >> (8 * (3 - k))) & 0xFF
-        if not dual:
-            return scalar_plane(v, bit)
-        v2 = (stream_idx2 >> (8 * (3 - k))) & 0xFF
-        a = ((v >> bit) & 1).astype(jnp.uint32) * _FULL
-        b = ((v2 >> bit) & 1).astype(jnp.uint32) * _FULL
-        # broadcast each stream to the plane shape BEFORE stacking:
-        # Mosaic cannot shape-cast a length-2 vector to (2, 1, 1)
-        return jnp.stack([jnp.broadcast_to(a, one_shape),
-                          jnp.broadcast_to(b, one_shape)], axis=0)
-
-    planes = []
-    for k in range(4):      # bytes 0-3: iter_index BE
-        v = (iter_index >> (8 * (3 - k))) & 0xFF
-        planes.extend(scalar_plane(v, i) for i in range(8))
-    for k in range(4):      # bytes 4-7: stream_idx BE
-        planes.extend(stream_plane(k, i) for i in range(8))
-    for k in range(8):      # bytes 8-15: 64-bit counter BE
-        for i in range(8):
-            bitpos = (7 - k) * 8 + i
-            if bitpos < 5:
-                planes.append(jnp.full(
-                    pshape, _LOW_BIT_PLANES[bitpos], jnp.uint32))
-            elif bitpos < 31:
-                planes.append(
-                    ((group_base >> bitpos) & 1).astype(jnp.uint32) * _FULL)
-            else:
-                planes.append(zeros)
-
-    # round-key bit scalars (broadcast at the XOR site)
     rk = jnp.asarray(round_keys, jnp.int32)
-
-    def ark(planes, r):
-        out = []
-        for k in range(16):
-            byte = rk[r, k]
-            for i in range(8):
-                bit = ((byte >> i) & 1).astype(jnp.uint32) * _FULL
-                out.append(planes[k * 8 + i] ^ bit)
-        return out
-
-    def sub_bytes(planes):
-        out = [None] * 128
-        for k in range(16):
-            bits = [planes[k * 8 + i] for i in range(8)]
-            sub = _sbox_planes(bits)
-            for i in range(8):
-                out[k * 8 + i] = sub[i]
-        return out
-
-    perm = [int(p) for p in aes_mod._SHIFT_ROWS]
-
-    def shift_rows(planes):  # pure renaming: zero device ops
-        return [planes[perm[k] * 8 + i] for k in range(16) for i in range(8)]
-
-    def xtime(b):  # b: list of 8 planes, LSB-first
-        b7 = b[7]
-        return [b7, b[0] ^ b7, b[1], b[2] ^ b7, b[3] ^ b7, b[4], b[5], b[6]]
-
-    def mix_columns(planes):
-        out = [None] * 128
-        for c in range(4):
-            s = [[planes[(4 * c + r) * 8 + i] for i in range(8)]
-                 for r in range(4)]
-            x = [xtime(s[r]) for r in range(4)]
-            for i in range(8):
-                out[(4 * c + 0) * 8 + i] = (
-                    x[0][i] ^ x[1][i] ^ s[1][i] ^ s[2][i] ^ s[3][i])
-                out[(4 * c + 1) * 8 + i] = (
-                    s[0][i] ^ x[1][i] ^ x[2][i] ^ s[2][i] ^ s[3][i])
-                out[(4 * c + 2) * 8 + i] = (
-                    s[0][i] ^ s[1][i] ^ x[2][i] ^ x[3][i] ^ s[3][i])
-                out[(4 * c + 3) * 8 + i] = (
-                    x[0][i] ^ s[0][i] ^ s[1][i] ^ s[2][i] ^ x[3][i])
-        return out
-
-    planes = ark(planes, 0)
-    for r in range(1, 14):
-        planes = sub_bytes(planes)
-        planes = shift_rows(planes)
-        planes = mix_columns(planes)
-        planes = ark(planes, r)
-    planes = sub_bytes(planes)
-    planes = shift_rows(planes)
-    planes = ark(planes, 14)
-
-    if dual:
-        # split the stream axis before the transpose network so each
-        # stream's words come out in the single-stream two_d shape
-        words_a, words_b = [], []
-        for w in range(4):
-            pa, pb = [], []
-            for t in range(32):
-                bitpos = 32 * w + t
-                k = 15 - (bitpos >> 3)
-                i = bitpos & 7
-                pa.append(planes[k * 8 + i][0])
-                pb.append(planes[k * 8 + i][1])
-            words_a.append(jnp.stack(_transpose32(pa), axis=0))
-            words_b.append(jnp.stack(_transpose32(pb), axis=0))
-        return words_a, words_b
-
-    words = []
-    for w in range(4):
-        plane_list = []
-        for t in range(32):
-            bitpos = 32 * w + t
-            k = 15 - (bitpos >> 3)
-            i = bitpos & 7
-            plane_list.append(planes[k * 8 + i])
-        tr = _transpose32(plane_list)
-        words.append(jnp.stack(tr, axis=0))  # (32, ngroups)
-    return words
-
-
-def lanes_permuted(words, int_bits: int):
-    """Lane extraction in the kernel-native permuted layout.
-
-    words: the four (32, G) arrays from bitsliced_counter_words.  Returns
-    (merge, 32, G) uint32 lanes where out[j0, j, g] = lane j0 of block
-    32*g + j — i.e. the linear lane order transposed by
-    (g, j, j0) -> (j0, j, g).  Only single-limb lanes (int_bits <= 32).
-    """
-    assert int_bits <= 32, "permuted extraction is single-limb only"
-    ws = list(words) + [jnp.zeros_like(words[0])]
-    merge = merge_size(int_bits)
-    m = np.uint32((1 << int_bits) - 1) if int_bits < 32 else _FULL
-    lanes = []
-    for j in range(merge):
-        bitpos = j * int_bits
-        wi, off = bitpos >> 5, bitpos & 31
-        v = ws[wi] if off == 0 else (
-            (ws[wi] >> off) | (ws[wi + 1] << (32 - off)))
-        lanes.append(v & m)
-    return jnp.stack(lanes, axis=0)  # (merge, 32, G)
+    bits = (rk[:, :, None] >> jnp.arange(8, dtype=jnp.int32)) & 1
+    return (bits.astype(jnp.uint32) * _FULL).reshape(15, 128)
 
 
 def bitsliced_prp_lane_stream(round_keys, iter_index, stream_idx,
-                              count: int, int_bits: int, begin_block=0,
-                              assume_aligned: bool = False):
+                              count: int, int_bits: int, begin_block=0):
     """Drop-in equivalent of prp_lane_stream via bitsliced AES.
 
     Lane semantics and bit-exactness contract identical to
-    flashe_tpu/ops/masks.py.  assume_aligned=True promises begin_block is
-    a multiple of 32 (static slicing, required inside Pallas kernels);
-    otherwise the counter base is aligned internally and the offset lanes
-    are sliced off (0..31 blocks of overgeneration).
+    flashe_tpu/ops/masks.py.  The counter base is aligned to 32 blocks
+    internally and the offset lanes are sliced off (0..31 blocks of
+    overgeneration).
     """
     nb = num_blocks(count, int_bits)
     raw_base = jnp.asarray(begin_block, jnp.int32)
-    if assume_aligned:
-        base = raw_base
-        skip_blocks = None
-        nb_padded = nb
-    else:
-        base = raw_base & np.int32(~31)
-        skip_blocks = raw_base - base
-        nb_padded = nb + 31  # room for the worst-case misalignment
+    base = raw_base & np.int32(~31)
+    skip_blocks = raw_base - base
+    nb_padded = nb + 31  # room for the worst-case misalignment
     ngroups = -(-nb_padded // 32)
 
     words = bitsliced_counter_words(round_keys, iter_index, stream_idx,
@@ -510,11 +303,8 @@ def bitsliced_prp_lane_stream(round_keys, iter_index, stream_idx,
             limbs.append(v & top_mask if l == nl - 1 else v)
         lanes.append(jnp.stack(limbs, axis=-1))
     all_lanes = jnp.stack(lanes, axis=1).reshape(ngroups * 32 * merge, nl)
-    if skip_blocks is None:
-        out = all_lanes[:count]
-    else:
-        out = jax.lax.dynamic_slice(
-            all_lanes, (skip_blocks * merge, 0 * skip_blocks), (count, nl))
+    out = jax.lax.dynamic_slice(
+        all_lanes, (skip_blocks * merge, 0 * skip_blocks), (count, nl))
     if nl == 1:
         return out[:, 0]
     return out

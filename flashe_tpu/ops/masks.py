@@ -1,4 +1,4 @@
-"""FLASHE PRP mask streams as fused TPU programs.
+"""FLASHE PRP mask streams as fused device programs.
 
 The reference generates one-time masks by AES-256-ECB over structured
 16-byte indices and chops each 128-bit output into `128 // int_bits` lanes,
@@ -174,25 +174,32 @@ def flashe_mask_pair(
 
 
 def reference_mask_stream_host(
-    seed: bytes, iter_index: int, stream_idx: int, count: int, int_bits: int
+    seed: bytes, iter_index: int, stream_idx: int, count: int, int_bits: int,
+    begin_block: int = 0,
 ) -> np.ndarray:
-    """Host-side oracle of the same stream via the `cryptography` AES.
+    """Host-side oracle of the same stream via the numpy AES
+    (crypto/aes_host.ecb_encrypt), independent of the device programs.
 
     Used for cross-checks and for golden-vector generation; mirrors
     jzf_flashe.py:48-82 with N_JOBS=1 (the canonical chunking).
+    begin_block starts at that global block (lane begin_block * merge).
     Returns object-dtype ints (arbitrary int_bits).
     """
-    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+    from flashe_tpu.crypto.aes_host import ecb_encrypt
 
-    enc = Cipher(algorithms.AES(seed), modes.ECB()).encryptor()
     merge = merge_size(int_bits)
-    prefix = iter_index.to_bytes(4, "big") + stream_idx.to_bytes(4, "big")
-    out = []
+    nb = num_blocks(count, int_bits)
+    blocks = np.zeros((nb, 16), np.uint8)
+    blocks[:, 0:4] = np.frombuffer(iter_index.to_bytes(4, "big"), np.uint8)
+    blocks[:, 4:8] = np.frombuffer(stream_idx.to_bytes(4, "big"), np.uint8)
+    ctr = np.arange(begin_block, begin_block + nb, dtype=np.uint64)
+    blocks[:, 8:] = ctr.astype(">u8").view(np.uint8).reshape(nb, 8)
+    out = ecb_encrypt(seed, blocks)
     mask = (1 << int_bits) - 1
-    for i in range(num_blocks(count, int_bits)):
-        block = enc.update(prefix + i.to_bytes(8, "big"))
-        val = int.from_bytes(block, "big")
+    lanes = []
+    for row in out:
+        val = int.from_bytes(row.tobytes(), "big")
         for _ in range(merge):
-            out.append(val & mask)
+            lanes.append(val & mask)
             val >>= int_bits
-    return np.array(out[:count], dtype=object)
+    return np.array(lanes[:count], dtype=object)

@@ -1,6 +1,5 @@
 """Child worker for multi-process mesh validation (launched by
-parallel.multihost.launch_local from tests, bench --processes, and
-__graft_entry__.dryrun_multihost).
+parallel.multihost.launch_local from tests).
 
 Each process emulates one party's host: it joins the coordinator, owns
 one client row of the global (clients, lanes) mesh with its local
@@ -33,10 +32,6 @@ def main():
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--elements", type=int, default=4000)
-    ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--bench", action="store_true",
-                    help="print per-round wall time instead of asserting "
-                         "only correctness")
     args = ap.parse_args()
 
     from flashe_tpu.parallel import multihost
@@ -106,19 +101,6 @@ def main():
     out.block_until_ready()
     want = q_full[list(survivors)].astype(np.int64).sum(0) % (1 << INT_BITS)
     check(out, want)
-
-    if args.bench:
-        # steady-state timing of the full round (post-compile)
-        reps = max(args.rounds, 3)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            out = multihost.multihost_encrypted_aggregate(
-                mesh, rk, q_local, jnp.int32(0), INT_BITS, n_clients)
-        out.block_until_ready()
-        np.asarray(out.addressable_shards[0].data).ravel()[:1]  # completion
-        dt = (time.perf_counter() - t0) / reps
-        print(f"BENCH process={args.process_id} round_s={dt:.6f} "
-              f"elements={n} clients={n_clients}")
 
     print(f"OK process={args.process_id} mesh={dict(mesh.shape)} "
           f"lanes={n} first_round_s={dt0:.3f}")

@@ -2,7 +2,7 @@
 
 The reference scales one silo's crypto across all its CPU cores with a
 `multiprocessing.Pool` over contiguous index chunks
-(federatedml/secureprotol/jzf_flashe.py:436-447).  The TPU-native
+(federatedml/secureprotol/jzf_flashe.py:436-447).  The accelerator
 composition is: the *protocol* path (flashe_tpu/protocol, TCP or in-mem
 federation between WAN silos) stays unchanged, while each party's
 encrypt/decrypt shards its flattened lane vector over a local 1-D
@@ -11,9 +11,9 @@ device mesh via `shard_map` — counter-offset mask generation
 slice of the PRP stream, so the sharded ciphertext is bit-identical to
 the single-device one (asserted in tests/test_party_mesh.py).
 
-This is the BASELINE north-star scaling story (1 chip -> 1 host -> N
-hosts *per party*): a silo with 4 chips encrypts 4x faster yet speaks
-the exact same wire protocol.
+This is the BASELINE north-star scaling story (1 card -> 1 host -> N
+hosts *per party*): a silo with 4 GPUs shards its crypto over all four
+yet speaks the exact same wire protocol.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from flashe_tpu.jaxenv import mask_kernel
 from flashe_tpu.ops.lanes import lane_add, lane_sub
 from flashe_tpu.ops.masks import merge_size, prp_lane_stream
 from flashe_tpu.parallel.sharded import (
@@ -41,7 +42,8 @@ def _party_encrypt(mesh, rk, q, iter_index, stream_idx, int_bits):
 
     def worker(rk, it, sidx, qb):
         s = jax.lax.axis_index("lanes")
-        return encrypt_shard(rk, qb, it, sidx, s, int_bits)
+        return encrypt_shard(rk, qb, it, sidx, s, int_bits,
+                             kernel=mask_kernel(mesh))
 
     return shard_map(
         worker, mesh=mesh,
@@ -59,7 +61,8 @@ def _party_decrypt(mesh, rk, agg, iter_index, int_bits, adds, minuses):
 
     def worker(rk, it, aggb):
         s = jax.lax.axis_index("lanes")
-        return decrypt_shard_runs(rk, aggb, it, adds, minuses, s, int_bits)
+        return decrypt_shard_runs(rk, aggb, it, adds, minuses, s, int_bits,
+                                  kernel=mask_kernel(mesh))
 
     return shard_map(
         worker, mesh=mesh,

@@ -1,13 +1,16 @@
 """Sharded encrypted aggregation over a device mesh.
 
-The TPU-native replacement for the reference's transport-level aggregation
-(jzf_aggregator.py:404-435: arbiter big-int adds over gRPC/LMDB): on a TPU
-slice, clients map to a mesh axis and the flattened lane vector shards
-across the other axis.  Each (client, lane-shard) worker generates exactly
-its slice of the PRP mask stream (counter-mode AES is embarrassingly
-parallel: `begin_block` offsets reproduce bit-identical lanes, see
-flashe_tpu/ops/masks.py), encrypts in VMEM, and the aggregate is one
-`psum` over ICI — no host round trips, no serialization.
+The accelerator replacement for the reference's transport-level
+aggregation (jzf_aggregator.py:404-435: arbiter big-int adds over
+gRPC/LMDB): on a multi-GPU host, clients map to a mesh axis and the
+flattened lane vector shards across the other axis.  Each (client,
+lane-shard) worker generates exactly its slice of the PRP mask stream
+(counter-mode AES is embarrassingly parallel: `begin_block` offsets
+reproduce bit-identical lanes, see flashe_tpu/ops/masks.py), encrypts on
+its own card, and the aggregate is one `psum`, which XLA hands to NCCL
+over NVLink — no host round trips, no serialization.  Every card reaches
+every other at the same rate, so the mesh shape follows the algorithm
+alone.
 
 Mask-index convention matches the protocol: client c on the mesh uses
 stream idx c (iter, idx, counter structure unchanged), so a mesh-aggregated
@@ -24,6 +27,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from flashe_tpu.jaxenv import mask_kernel
 from flashe_tpu.ops.lanes import lane_add, lane_sub
 from flashe_tpu.ops.masks import merge_size, prp_lane_stream
 
@@ -48,30 +52,21 @@ def padded_lane_count(n: int, int_bits: int, n_shards: int) -> int:
     return -(-n // quantum) * quantum
 
 
-def _fused_default() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def encrypt_shard(rk, q_shard, iter_index, stream_idx, shard_id, int_bits,
-                  use_circuit=True, fused=None):
+                  use_circuit=True, kernel="xla"):
     """Encrypt one lane shard; counters offset by the shard's first block.
 
-    fused=None picks the fused Pallas kernel on TPU backends (the
-    base_block counter offset keeps shards bit-identical to the
-    single-device stream) and the XLA stream path elsewhere.
+    kernel: jaxenv.mask_kernel of the mesh the shard runs on.  "cuda"
+    runs the fused kernel (its base_block counter offset keeps shards
+    bit-identical to the single-device stream), "xla" the stream path.
     """
     n = q_shard.shape[0]
     merge = merge_size(int_bits)
     begin = shard_id * (n // merge)
-    if fused is None:
-        fused = _fused_default()
-    if fused:
-        from flashe_tpu.ops.pallas_flashe import pallas_mask_apply
+    if kernel == "cuda":
+        from flashe_tpu.ops.fused_mask import fused_mask_apply
 
-        return pallas_mask_apply(q_shard, rk, iter_index, stream_idx,
+        return fused_mask_apply(q_shard, rk, iter_index, stream_idx,
                                  stream_idx + 1, int_bits, base_block=begin)
     add = prp_lane_stream(rk, iter_index, stream_idx, n, int_bits,
                           begin_block=begin, use_circuit=use_circuit)
@@ -81,17 +76,15 @@ def encrypt_shard(rk, q_shard, iter_index, stream_idx, shard_id, int_bits,
 
 
 def decrypt_shard(rk, agg_shard, iter_index, num_clients, shard_id, int_bits,
-                  use_circuit=True, fused=None):
+                  use_circuit=True, kernel="xla"):
     """Boundary-mask decrypt of an aggregated lane shard."""
     n = agg_shard.shape[0]
     merge = merge_size(int_bits)
     begin = shard_id * (n // merge)
-    if fused is None:
-        fused = _fused_default()
-    if fused:
-        from flashe_tpu.ops.pallas_flashe import pallas_mask_apply
+    if kernel == "cuda":
+        from flashe_tpu.ops.fused_mask import fused_mask_apply
 
-        return pallas_mask_apply(agg_shard, rk, iter_index, num_clients, 0,
+        return fused_mask_apply(agg_shard, rk, iter_index, num_clients, 0,
                                  int_bits, base_block=begin)
     add = prp_lane_stream(rk, iter_index, num_clients, n, int_bits,
                           begin_block=begin, use_circuit=use_circuit)
@@ -101,7 +94,7 @@ def decrypt_shard(rk, agg_shard, iter_index, num_clients, shard_id, int_bits,
 
 
 def decrypt_shard_runs(rk, agg_shard, iter_index, adds, minuses, shard_id,
-                       int_bits, use_circuit=True, fused=None):
+                       int_bits, use_circuit=True, kernel="xla"):
     """Decrypt an aggregated lane shard given run-merged telescope
     boundaries (dropout path: `adds`/`minuses` from
     crypto.flashe.merge_idx_runs over the survivor idx list,
@@ -109,16 +102,14 @@ def decrypt_shard_runs(rk, agg_shard, iter_index, adds, minuses, shard_id,
     n = agg_shard.shape[0]
     merge = merge_size(int_bits)
     begin = shard_id * (n // merge)
-    if fused is None:
-        fused = _fused_default()
     out = agg_shard
     adds, minuses = list(adds), list(minuses)
-    if fused:
-        from flashe_tpu.ops.pallas_flashe import pallas_mask_apply
+    if kernel == "cuda":
+        from flashe_tpu.ops.fused_mask import fused_mask_apply
 
         npairs = min(len(adds), len(minuses))
         for a, b in zip(adds[:npairs], minuses[:npairs]):
-            out = pallas_mask_apply(out, rk, iter_index, a, b, int_bits,
+            out = fused_mask_apply(out, rk, iter_index, a, b, int_bits,
                                     base_block=begin)
         adds, minuses = adds[npairs:], minuses[npairs:]
     for a in adds:
@@ -157,7 +148,7 @@ def encrypted_aggregate(mesh: Mesh, rk, q, iter_index, int_bits: int,
     """
     if num_clients << int_bits > (1 << 32):
         raise ValueError("num_clients * 2^int_bits must fit in uint32 psum")
-    n_shards = mesh.shape["lanes"]
+    kernel = mask_kernel(mesh)
 
     if survivors is not None:
         from flashe_tpu.crypto.flashe import merge_idx_runs
@@ -169,7 +160,8 @@ def encrypted_aggregate(mesh: Mesh, rk, q, iter_index, int_bits: int,
         c = jax.lax.axis_index("clients")
         s = jax.lax.axis_index("lanes")
         qb = q_block[0]  # (shard_lanes,)
-        ct = encrypt_shard(rk, qb, iter_index, c, s, int_bits, use_circuit)
+        ct = encrypt_shard(rk, qb, iter_index, c, s, int_bits, use_circuit,
+                           kernel)
         if survivors is not None:
             alive = functools.reduce(
                 jnp.logical_or, [c == i for i in survivors])
@@ -180,10 +172,10 @@ def encrypted_aggregate(mesh: Mesh, rk, q, iter_index, int_bits: int,
         agg = agg & m
         if survivors is None:
             out = decrypt_shard(rk, agg, iter_index, num_clients, s,
-                                int_bits, use_circuit)
+                                int_bits, use_circuit, kernel)
         else:
             out = decrypt_shard_runs(rk, agg, iter_index, adds, minuses, s,
-                                     int_bits, use_circuit)
+                                     int_bits, use_circuit, kernel)
         return out[None, :]
 
     fn = shard_map(

@@ -4,7 +4,8 @@ The library-sized replacement for fate_flow's JobController/TaskScheduler
 (fate_flow/driver/job_controller.py:42, task_scheduler.py:286-315): start
 the federation broker, write per-party task configs and data shards, spawn
 one task-executor subprocess per (role, party), watch liveness, collect
-outputs.  Kill-job semantics: any dead child aborts the rest
+outputs.  Children get GPUs by runtime/placement.py's rule: a card each
+while there are enough, else an explicit memory share of a shared card.  Kill-job semantics: any dead child aborts the rest
 (the reference's job_detector / kill-file watch).
 """
 
@@ -25,6 +26,7 @@ import numpy as np
 from flashe_tpu.fed.tcp import FedBroker
 from flashe_tpu.runtime.config import HomoNNParam
 from flashe_tpu.runtime.job_manager import JobRegistry, default_registry
+from flashe_tpu.runtime.placement import child_envs
 
 __all__ = ["submit_job", "submit_dsl_job", "JobCanceled"]
 
@@ -44,14 +46,15 @@ def _run_party_processes(job_id: str, reg: JobRegistry, workdir: str,
     procs: List[subprocess.Popen] = []
     names: Dict[int, str] = {}
     status, err = "success", ""
+    envs, rule = child_envs({**os.environ, **(env_overrides or {})},
+                            len(task_cfgs))
+    print(f"job {job_id}: {rule}", file=sys.stderr, flush=True)
     try:
-        for cfg in task_cfgs:
+        for cfg, env in zip(task_cfgs, envs):
             task = f"{cfg['role']}_{cfg['party_id']}"
             cfg_path = os.path.join(workdir, task + ".json")
             with open(cfg_path, "w") as f:
                 json.dump(cfg, f)
-            env = dict(os.environ)
-            env.update(env_overrides or {})
             log_path = os.path.join(reg.log_dir(job_id), task + ".log")
             with open(log_path, "ab") as logf:
                 proc = subprocess.Popen(

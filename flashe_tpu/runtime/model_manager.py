@@ -17,7 +17,8 @@ import shutil
 import time
 from typing import List, Optional
 
-from flashe_tpu.runtime.checkpoint import load_checkpoint, save_checkpoint
+from flashe_tpu.runtime.checkpoint import (
+    checkpoint_aggregate_iter, load_checkpoint, save_checkpoint)
 
 __all__ = ["ModelManager", "default_model_manager"]
 
@@ -62,17 +63,14 @@ class ModelManager:
                            param_dict: Optional[dict] = None) -> dict:
         """Register an existing checkpoint file (e.g. a job's
         <role>_<party>.ckpt) as a model version."""
-        import pickle
-
-        with open(ckpt_path, "rb") as f:
-            blob = pickle.load(f)
+        aggregate_iter = checkpoint_aggregate_iter(ckpt_path)
         d = self._dir(namespace, version)
         os.makedirs(d, exist_ok=True)
         shutil.copyfile(ckpt_path, os.path.join(d, "model.ckpt"))
         meta = {
             "namespace": namespace,
             "version": version,
-            "aggregate_iter": int(blob["aggregate_iter"]),
+            "aggregate_iter": aggregate_iter,
             "param": param_dict or {},
             "created": time.time(),
         }

@@ -209,9 +209,9 @@ def render_index_html(jobs: List[dict],
                  f"{len(queue.get('running', []))} running / "
                  f"{len(queue.get('waiting', []))} waiting "
                  f"(max {queue.get('max_concurrent', '?')} concurrent)")
-    body = (f"<h1>flashe-tpu jobs</h1><p class='sub'>{len(jobs)} job(s)"
+    body = (f"<h1>FLASHE jobs</h1><p class='sub'>{len(jobs)} job(s)"
             f"{qline}</p><div class='card'>{table}</div>")
-    return _page("flashe-tpu jobs", body, refresh=running)
+    return _page("FLASHE jobs", body, refresh=running)
 
 
 # ---------------------------------------------------------------- loss chart

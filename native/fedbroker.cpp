@@ -1,6 +1,6 @@
 // Native federation exchange ("the broker").
 //
-// TPU-era replacement for the reference's WAN-facing Java services
+// This repository's replacement for the reference's WAN-facing Java services
 // (arch/networking/proxy: gRPC DataTransferService push/pull routed by
 // route_table.json; arch/driver/federation: TransferSubmitService with
 // LMDB staging).  All inter-party bytes — control messages and model

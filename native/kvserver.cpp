@@ -1,5 +1,5 @@
 // Networked storage node: the persistent KV store (kvstore.cpp) served
-// over TCP — the TPU-era analogue of eggroll's *remote* storage-service
+// over TCP — this repository's analogue of eggroll's *remote* storage-service
 // (the C++ LMDB node that FATE DTables talk to across processes/machines;
 // SURVEY.md section 2.3).  flashe_tpu/data/remote_kv.py is the client
 // (and carries a pure-python server speaking the same protocol for

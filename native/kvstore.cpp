@@ -1,4 +1,4 @@
-// Persistent partitioned KV storage node — the TPU-era analogue of
+// Persistent partitioned KV storage node — this repository's analogue of
 // eggroll's storage-service-cxx (the C++ LMDB node behind FATE's DTable;
 // see SURVEY.md section 2.3).  Design: per-partition append-only log files
 // with an in-memory hash index rebuilt on open (crash-safe: a torn tail

@@ -1,4 +1,4 @@
-// Native wire bit-packing for flashe-tpu.
+// Native wire bit-packing for the FLASHE wire format.
 //
 // The role the reference fills with native code on its hot host paths
 // (eggroll's C++ storage service; multiprocessing big-int packing in

@@ -42,45 +42,3 @@ def test_bitsliced_sharded_offset():
         bitsliced_prp_lane_stream(rk, 0, 1, 32 * merge, int_bits,
                                   begin_block=32))
     np.testing.assert_array_equal(shard, full[32 * merge: 64 * merge])
-
-
-def test_flat_planes_match_stacked():
-    """The flat-plane circuit (TPU fast path of the fused kernel) is
-    bit-identical to the stacked circuit, in both 1-D and 2-D plane
-    layouts."""
-    import jax.numpy as jnp
-
-    from flashe_tpu.ops import aes as aes_mod
-    from flashe_tpu.ops import aes_bitsliced as ab
-
-    rk = jnp.asarray(
-        aes_mod.key_schedule(bytes(range(32))).astype(np.int32))
-    ref = ab.bitsliced_counter_words(rk, 3, 7, 8, 64)
-    flat = ab.bitsliced_counter_words_flat(rk, 3, 7, 8, 64)
-    for a, b in zip(ref, flat):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    flat2 = ab.bitsliced_counter_words_flat(rk, 3, 7, 8, 64, two_d=True)
-    for a, b in zip(ref, flat2):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b).reshape(32, 8))
-
-
-def test_dual_interleaved_streams_match_singles():
-    """The shared-schedule dual-stream circuit (FLASHE_DUAL_INTERLEAVE
-    experiment, docs/ROOFLINE.md §3) is bit-identical to two independent
-    single-stream evaluations."""
-    import jax.numpy as jnp
-
-    from flashe_tpu.ops import aes as aes_mod
-    from flashe_tpu.ops import aes_bitsliced as ab
-
-    rk = jnp.asarray(
-        aes_mod.key_schedule(bytes(range(32))).astype(np.int32))
-    one_a = ab.bitsliced_counter_words_flat(rk, 5, 2, 256, 96, two_d=True)
-    one_b = ab.bitsliced_counter_words_flat(rk, 5, 3, 256, 96, two_d=True)
-    wa, wb = ab.bitsliced_counter_words_flat(rk, 5, 2, 256, 96,
-                                             two_d=True, stream_idx2=3)
-    for x, y in zip(one_a, wa):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    for x, y in zip(one_b, wb):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))

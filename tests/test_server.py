@@ -120,7 +120,7 @@ def test_web_board_routes(server):
     page = urllib.request.urlopen(f"{base}/", timeout=10)
     assert page.headers["Content-Type"].startswith("text/html")
     text = page.read().decode()
-    assert "flashe-tpu jobs" in text and "no jobs yet" in text
+    assert "FLASHE jobs" in text and "no jobs yet" in text
     # the index surfaces the scheduler queue state
     assert "queue: 0 running / 0 waiting" in text
 
